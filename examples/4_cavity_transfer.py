@@ -33,10 +33,9 @@ B_C = B.astype(np.complex64)
 
 
 # Declaring the linear control structure H = H0 + c0 A + c1 B + h.c.
-# (rather than an opaque callable) routes the propagation through the
-# fused Pallas chain kernel on TPU backends — ~10x over the generic
-# batched-expm path at this size (A and B are real, so A^T == A^H and the
-# LinearHamiltonian contract matches the formula above exactly).
+# (rather than an opaque callable) keeps the structure as data (A and B are
+# real, so A^T == A^H and the LinearHamiltonian contract matches the formula
+# above exactly).
 from qoc_tpu import LinearHamiltonian  # noqa: E402  (after constants)
 
 hamiltonian = LinearHamiltonian(H0, np.stack((A_C, B_C)))

@@ -5,9 +5,8 @@ answer to non-convexity is rerunning by hand with new ``initial_controls``,
 and it has no ensemble capability at all). Here:
 
 - ``EnsembleLinearHamiltonian`` declares the affine detuning structure
-  H_m = (1 + delta_m) H0 + c a + conj(c) a^H, which routes EVERY
-  (candidate x member) trajectory through one member-batched fused Pallas
-  chain kernel per time block on TPU;
+  H_m = (1 + delta_m) H0 + c a + conj(c) a^H, and every
+  (candidate x member) trajectory propagates in one vmapped batch;
 - 64 white-noise pulse candidates each carry their own Adam state and
   optimize the psum-reduced ensemble-mean infidelity, sharded over a
   ("candidate", "ensemble") device mesh;

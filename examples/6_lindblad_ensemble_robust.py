@@ -5,10 +5,8 @@ Lindblad multistart driver.
 The open-system twin of example 3: each ensemble member integrates the full
 master equation (reference lindbladdiscrete.py dynamics) on its mesh shard;
 the psum-reduced ensemble-mean infidelity drives one Adam update on the
-shared pulse. Declaring the structure (``EnsembleLinearHamiltonian`` +
-``ConstantLindblad``) with ``method=LindbladMethod.MAGNUS_EXPM`` routes all
-members' vectorized (d², d²) superoperator chains through the member-batched
-fused Pallas chain kernel.
+shared pulse. With ``method=LindbladMethod.MAGNUS_EXPM`` all members'
+vectorized (d², d²) superoperator chains propagate in one vmapped batch.
 """
 
 import numpy as np
@@ -27,8 +25,7 @@ from qoc_tpu.standard import (
 H0 = np.asarray(SIGMA_Z) / 2
 A = get_annihilation_operator(2)
 
-# H(δ, c) = (1+δ)·σz/2 + c·a + conj(c)·a†  — affine in [1, δ, Re c, Im c],
-# so every member rides the fused superoperator chain kernel.
+# H(δ, c) = (1+δ)·σz/2 + c·a + conj(c)·a†  — affine in [1, δ, Re c, Im c].
 HAMILTONIAN = EnsembleLinearHamiltonian(H0, np.stack((A,)), [H0])
 hamiltonian = HAMILTONIAN  # callable (params_row, controls, time) -> (d, d)
 DETUNINGS = np.linspace(-0.02, 0.02, 8).reshape(-1, 1)

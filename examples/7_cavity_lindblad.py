@@ -2,13 +2,9 @@
 superoperator dimension 400).
 
 Real open-system scale: the Lindblad master equation is propagated through
-(400, 400) superoperators — far beyond the d=2 decoherence example. With
-the linear control structure declared (``LinearHamiltonian`` drive +
-``ConstantLindblad`` photon loss) and ``LindbladMethod.MAGNUS_EXPM``, the
-whole superoperator build + expm + ordered product runs in the
-streamed-generator Pallas chain kernel on TPU backends (padded dim 448;
-measured 4.0x the generic blocked-XLA path on 1x v5e —
-``docs/performance.md``).
+(400, 400) superoperators — far beyond the d=2 decoherence example — with
+``LindbladMethod.MAGNUS_EXPM``: each time block's superoperator
+exponentials are computed batched and multiplied in log depth.
 
 Physics: drive a cavity with single-photon loss (T1 = kappa^-1) from
 vacuum toward the one-photon Fock state; the optimizer must fight the
@@ -17,8 +13,8 @@ transmon, /root/reference/examples/1_transmon_pi_dechoerence.py —
 this extends the same contract to a cavity-scale problem.)
 
 ``main(cavity_levels=...)`` scales the cavity: 20 is the showcase size
-(TPU); the CI smoke tier runs a smaller cavity so the CPU-interpreted
-suite stays fast.
+(GPU); the CI smoke tier runs a smaller cavity so the CPU suite stays
+fast.
 """
 
 import numpy as np

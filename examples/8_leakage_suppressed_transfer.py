@@ -1,13 +1,10 @@
-"""Leakage-suppressed qutrit pi pulse: ForbidStates on the fused path.
+"""Leakage-suppressed qutrit pi pulse: a ForbidStates step cost.
 
 The classic step-cost GRAPE use case (reference
 qoc/standard/costs/forbidstates.py): drive a weakly-anharmonic
 three-level transmon |0> -> |1> while PENALIZING population of the leakage
-level |2> at every time step. Step costs ride the fused Pallas chain
-kernel since round 5 (the kernel's per-step prefixes feed the cost stack,
-and their cotangents seed the backward kernel per step), so this pays
-~1.6x over a plain infidelity run instead of the ~10x generic-path
-detour it took before.
+level |2> at every time step. Step costs need every step's states, which
+the propagation takes from its prefix scan instead of a tree product.
 
 Run with a larger ``anharmonicity`` to see the leakage penalty matter
 less; at the default weak anharmonicity the optimizer must actively

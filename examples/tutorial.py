@@ -100,7 +100,7 @@ def main(iteration_count=ITERATION_COUNT, save_path=SAVE_PATH,
         # LBFGSB() = the reference's scipy host path, kept for parity.
         # qoc_tpu.optim.LBFGS() is the device-resident quasi-Newton twin:
         # it stays inside the fused on-device loop (and supports min_error,
-        # resume, ensembles, multistart) — prefer it on TPU.
+        # resume, ensembles, multistart) — prefer it on an accelerator.
         log_iteration_step=log_iteration_step, optimizer=LBFGSB(),
         save_file_path=save_file_path, save_iteration_step=1)
     print("best error: {} at iteration {}".format(result.best_error,

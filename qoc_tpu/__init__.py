@@ -1,6 +1,6 @@
-"""qoc_tpu - a TPU-native GRAPE quantum optimal control framework.
+"""qoc_tpu - GRAPE quantum optimal control on JAX/XLA.
 
-Built from scratch on JAX/XLA/Pallas with the capabilities of SchusterLab/qoc
+Built from scratch on JAX/XLA with the capabilities of SchusterLab/qoc
 (reference at /root/reference): Schrödinger and Lindblad GRAPE with an
 extensible cost stack, Adam/L-BFGS-B/SGD optimizers, H5 checkpointing, and
 multi-device ensemble sharding.

@@ -16,7 +16,7 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from qoc_tpu.config import np_complex_dtype
+from qoc_tpu.config import MATMUL_PRECISION, np_complex_dtype
 from qoc_tpu.models import Cost
 
 __all__ = ["TargetDensityInfidelity", "TargetDensityInfidelityTime",
@@ -43,7 +43,8 @@ class TargetDensityInfidelity(Cost):
             np.swapaxes(target_densities, -1, -2))
 
     def cost(self, controls, densities, system_eval_step):
-        prods = jnp.matmul(self.target_densities_dagger, densities)
+        prods = jnp.matmul(self.target_densities_dagger, densities,
+                           precision=MATMUL_PRECISION)
         fidelities = jnp.abs(_batched_trace(prods))
         fidelity_normalized = (jnp.sum(fidelities)
                                / (self.density_count * self.hilbert_size))
@@ -68,7 +69,8 @@ class TargetDensityInfidelityTime(Cost):
             np.swapaxes(target_densities, -1, -2))
 
     def cost(self, controls, densities, system_eval_step):
-        prods = jnp.matmul(self.target_densities_dagger, densities)
+        prods = jnp.matmul(self.target_densities_dagger, densities,
+                           precision=MATMUL_PRECISION)
         fidelities = jnp.abs(_batched_trace(prods))
         fidelity_normalized = (jnp.sum(fidelities)
                                / (self.density_count * self.hilbert_size))
@@ -114,7 +116,8 @@ class ForbidDensities(Cost):
         for i, forbidden_dagger in enumerate(self.forbidden_densities_dagger):
             # (F, d, d) x (d, d) -> (F, d, d), trace -> (F,)
             inner_products = (_batched_trace(
-                jnp.matmul(forbidden_dagger, densities[i]))
+                jnp.matmul(forbidden_dagger, densities[i],
+                           precision=MATMUL_PRECISION))
                 / self.hilbert_size)
             fidelities = jnp.real(inner_products
                                   * jnp.conjugate(inner_products))

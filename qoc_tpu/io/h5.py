@@ -18,16 +18,25 @@ the reference never checkpoints Adam moments (SURVEY.md §5).
 
 import numpy as np
 
-try:
-    import h5py
-    from filelock import FileLock, Timeout
-    _HAVE_H5 = True
-except ImportError:  # pragma: no cover - both baked into the target image
-    _HAVE_H5 = False
-
-__all__ = ["H5Checkpointer"]
+__all__ = ["H5Checkpointer", "h5_modules"]
 
 _LOCK_TIMEOUT_S = 10
+
+
+def h5_modules():
+    """``(h5py, FileLock, Timeout)``, imported on first use.
+
+    Only saving, resuming and plotting touch save files, so ``import
+    qoc_tpu`` and a run without ``save_file_path`` need neither package.
+    """
+    try:
+        import h5py
+        from filelock import FileLock, Timeout
+    except ImportError as exc:
+        raise ImportError(
+            "save files need h5py and filelock: pip install "
+            "'qoc-tpu[io]'") from exc
+    return h5py, FileLock, Timeout
 
 
 class H5Checkpointer:
@@ -42,8 +51,7 @@ class H5Checkpointer:
     """
 
     def __init__(self, save_file_path):
-        if not _HAVE_H5:
-            raise ImportError("h5py/filelock are required for save files.")
+        h5_modules()
         self.save_file_path = save_file_path
         self.lock_path = save_file_path + ".lock"
         from qoc_tpu.config import is_io_process
@@ -52,6 +60,7 @@ class H5Checkpointer:
     def _locked_write(self, fn, mode="a", what="save"):
         if not self._writes_enabled:
             return
+        h5py, FileLock, Timeout = h5_modules()
         try:
             with FileLock(self.lock_path, timeout=_LOCK_TIMEOUT_S):
                 with h5py.File(self.save_file_path, mode) as save_file:
@@ -192,6 +201,7 @@ class H5Checkpointer:
 
     def load_optimizer_state(self):
         """Read back a checkpointed optimizer state, or None."""
+        h5py, FileLock, Timeout = h5_modules()
         try:
             with FileLock(self.lock_path, timeout=_LOCK_TIMEOUT_S):
                 with h5py.File(self.save_file_path, "r") as f:

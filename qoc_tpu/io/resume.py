@@ -12,8 +12,7 @@ import os
 
 import numpy as np
 
-import h5py
-from filelock import FileLock, Timeout
+from qoc_tpu.io.h5 import h5_modules
 
 __all__ = ["apply_resume", "load_controls", "load_best_controls"]
 
@@ -21,6 +20,7 @@ _LOCK_TIMEOUT_S = 10
 
 
 def _read(file_path, keys):
+    h5py, FileLock, Timeout = h5_modules()
     lock_path = file_path + ".lock"
     try:
         with FileLock(lock_path, timeout=_LOCK_TIMEOUT_S):

@@ -7,17 +7,16 @@ declares the ubiquitous *linear control* structure
 
     H(c, t) = H0 + Σᵢ cᵢ Aᵢ + conj(cᵢ) Aᵢ^H
 
-as data. It remains a plain callable with the standard contract (so every
-generic code path works), and it unlocks the fully fused Pallas chain
-propagation (ops/chain_pallas.py) in ``grape_schroedinger_discrete`` /
-``evolve_schroedinger_discrete`` for Magnus-M2 problems with no step
-costs — the fastest TPU path.
+as data. It remains a plain callable with the standard contract, so every
+driver accepts it, and it exposes the structure itself (Hermitian,
+generator and superoperator bases) for code that exploits linearity.
 """
 
 import numpy as np
 
-import jax
 import jax.numpy as jnp
+
+from qoc_tpu.config import MATMUL_PRECISION, as_complex
 
 __all__ = ["ConstantLindblad", "EnsembleLinearHamiltonian",
            "LinearHamiltonian"]
@@ -53,13 +52,12 @@ class LinearHamiltonian:
         return self.operators.shape[0]
 
     def __call__(self, controls, time):
-        from qoc_tpu.config import as_complex
         h0 = as_complex(self.h0)
         if controls is None:
             return jnp.asarray(h0)
         ops = as_complex(self.operators)
         drive = jnp.einsum("...i,iab->...ab", as_complex(controls),
-                           jnp.asarray(ops))
+                           jnp.asarray(ops), precision=MATMUL_PRECISION)
         return h0 + drive + jnp.conjugate(jnp.swapaxes(drive, -1, -2))
 
     def hermitian_basis(self):
@@ -84,9 +82,8 @@ class LinearHamiltonian:
         (1+2n, d², d²)): S_step = Σ_k W_k basis_k with the same weight
         layout, where S vec(ρ) = vec(L(ρ)) in row-major (C-order) vec
         convention — numerically identical to
-        :func:`qoc_tpu.ops.lindblad.lindblad_superoperator` (asserted by
-        tests/test_chain.py). The constant dissipator part folds into the
-        k=0 term."""
+        :func:`qoc_tpu.ops.lindblad.lindblad_superoperator`. The constant
+        dissipator part folds into the k=0 term."""
         d = self.h0.shape[-1]
         eye = np.eye(d)
 
@@ -122,13 +119,10 @@ class EnsembleLinearHamiltonian(LinearHamiltonian):
     with real coefficients). The common case "(1+δ)·H0" is
     ``param_operators=[h0]``.
 
-    Declaring this structure lets ``grape_schroedinger_ensemble`` run every
-    member through the fused Pallas chain-propagation kernel
-    (ops/chain_pallas.py) — the member parameters become extra constant
-    weight columns of the shared generator basis, so all members share one
-    kernel and one Taylor-degree dispatch. The instance is also callable
-    with the generic ensemble contract ``(params_row, controls, time)`` so
-    every non-fused code path works unchanged.
+    The instance is callable with the ensemble contract
+    ``(params_row, controls, time)`` of ``grape_schroedinger_ensemble`` and
+    the robust multistart; its bases put the member parameters in extra
+    weight columns beside the controls.
     """
 
     def __init__(self, h0, operators, param_operators):
@@ -155,14 +149,13 @@ class EnsembleLinearHamiltonian(LinearHamiltonian):
         return self.param_operators.shape[0]
 
     def __call__(self, params_row, controls, time):
-        from qoc_tpu.config import as_complex
         h = LinearHamiltonian.__call__(self, controls, time)
         pops = jnp.asarray(as_complex(self.param_operators))
-        return h + jnp.einsum("p,pab->ab", as_complex(params_row), pops)
+        return h + jnp.einsum("p,pab->ab", as_complex(params_row), pops,
+                              precision=MATMUL_PRECISION)
 
     def member(self, params_row):
-        """Plain ``(controls, time) -> H`` callable for one member (the
-        generic, non-fused path)."""
+        """Plain ``(controls, time) -> H`` callable for one member."""
         return lambda controls, time: self(params_row, controls, time)
 
     def hermitian_basis(self):
@@ -194,8 +187,8 @@ class ConstantLindblad:
     """Time-independent Lindblad data: callable with the reference contract
     ``(time) -> (dissipation_rates, operators)``
     (reference lindbladdiscrete.py:76-79) that declares constancy as
-    structure — unlocking the fused chain-propagation path for
-    ``LindbladMethod.MAGNUS_EXPM`` with a ``LinearHamiltonian``.
+    structure (``LinearHamiltonian.superoperator_basis`` folds it into the
+    constant term).
 
     Arguments:
     dissipators :: numpy (n_ops,) - rates g_i.

@@ -44,7 +44,6 @@ class OperationPolicy(Enum):
     GPU = 2
     CPU_SPARSE = 3
     GPU_SPARSE = 4
-    TPU = 5
 
     def __str__(self):
         return self.name.lower()
@@ -73,8 +72,8 @@ class LindbladMethod(Enum):
     RKDP5: adaptive Dormand-Prince, reference-parity semantics (restarted per
     system_eval interval, accuracy set by atol).
     MAGNUS_EXPM: vectorize the density, build the Lindblad superoperator, and
-    propagate with Magnus + expm on the d^2-dimensional space — the TPU-native
-    fast path sharing the Schrödinger kernel machinery.
+    propagate with Magnus + expm on the d^2-dimensional space — fixed cost
+    per step, batched like the Schrödinger propagation.
     """
     RKDP5 = 1
     MAGNUS_EXPM = 2

@@ -1,6 +1,6 @@
 """Control interpolation.
 
-TPU-native counterpart of the reference's linear interpolation
+Counterpart of the reference's linear interpolation
 (/root/reference/qoc/core/mathmethods.py:14-67). The reference brackets the
 query with ``anp.argmax(x <= xs)``; here it is a ``jnp.searchsorted`` (binary
 search, jit/vmap safe, O(log N)) with the bracket clamped to [1, N-1], which

@@ -1,6 +1,6 @@
 """Batched complex linear-algebra primitives.
 
-TPU-native counterparts of the reference convenience ops
+Counterparts of the reference convenience ops
 (/root/reference/qoc/standard/functions/convenience.py:16-104). All functions
 are pure, jit-safe, and batched over arbitrary leading axes.
 """
@@ -24,7 +24,7 @@ __all__ = [
 
 
 def mul(a, b):
-    """Matrix product on the trailing two axes at HIGHEST MXU precision."""
+    """Matrix product on the trailing two axes at ``MATMUL_PRECISION``."""
     return jnp.matmul(a, b, precision=MATMUL_PRECISION)
 
 

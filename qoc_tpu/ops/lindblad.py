@@ -1,11 +1,11 @@
 """Lindblad master-equation right-hand side.
 
-TPU-native counterpart of /root/reference/qoc/core/mathmethods.py:169-206:
+Counterpart of /root/reference/qoc/core/mathmethods.py:169-206:
 L(rho) = -i [H, rho] + sum_i g_i (L_i rho L_i^dag - 1/2 {L_i^dag L_i, rho}).
 
 The reference loops over dissipation channels in Python; here the channel axis
 is contracted with batched einsums so XLA fuses the whole superoperator
-application, and the density batch axis rides the MXU. A vectorized
+application, and the density batch axis batches the products. A vectorized
 (column-stacked) superoperator builder is also provided so the Lindblad path
 can reuse the Magnus + expm propagation machinery.
 """
@@ -65,8 +65,8 @@ def lindblad_superoperator(dissipators=None, hamiltonian=None, operators=None,
     Using vec(A X B) = (B^T kron A) vec(X) for column-major vec; this module
     uses row-major (C-order) ravel, for which vec(A X B) = (A kron B^T) vec(X).
     Enables propagating densities with expm(dt * S) through the same
-    scaling-and-squaring kernel as the Schrödinger path (a TPU-native
-    alternative the reference lacks; see SURVEY.md section 7).
+    scaling-and-squaring expm as the Schrödinger path (an alternative the
+    reference lacks; see SURVEY.md section 7).
     """
     if hilbert_size is None:
         if hamiltonian is not None:

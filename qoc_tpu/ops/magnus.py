@@ -1,6 +1,6 @@
 """Magnus expansions M2 / M4 / M6 with Gauss-Legendre collocation.
 
-TPU-native counterpart of /root/reference/qoc/core/mathmethods.py:70-164,
+Counterpart of /root/reference/qoc/core/mathmethods.py:70-164,
 following arXiv:1709.06483. Each function takes a jax-traceable generator
 callable ``a(t) -> matrix`` (typically ``-1j * H(t)``), samples it at the
 collocation nodes of the interval [time, time + dt], and combines the samples

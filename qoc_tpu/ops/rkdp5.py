@@ -1,6 +1,6 @@
 """Adaptive Dormand-Prince RKDP5(4) integrator with dense output.
 
-TPU-native counterpart of /root/reference/qoc/core/mathmethods.py:209-480:
+Counterpart of /root/reference/qoc/core/mathmethods.py:209-480:
 same Butcher tableau, FSAL reuse, Hairer automatic initial step size, accept/
 reject controller (safety 0.9, factors [0.2, 10]), and quartic dense output.
 Two execution strategies replace the reference's Python while-loops:

@@ -2,13 +2,13 @@
 device mesh.
 
 The reference has no ensemble or multi-device capability (SURVEY.md §2.4);
-this is the BASELINE.json "ensemble-robust GRAPE" configuration built
-TPU-first: every ensemble member (a Hamiltonian parameter row — detuning,
+this is the BASELINE.json "ensemble-robust GRAPE" configuration: every
+ensemble member (a Hamiltonian parameter row — detuning,
 amplitude miscalibration, ...) rolls out the full propagation via ``vmap``
 inside its mesh shard, per-shard costs and gradients are reduced with
 ``psum`` over the ``"ensemble"`` mesh axis, and one optimizer step updates
-the replicated controls. Collectives ride ICI within a slice (DCN across
-hosts after ``jax.distributed.initialize``).
+the replicated controls. XLA lowers the collectives to NCCL between the
+GPUs of a host (and across hosts after ``jax.distributed.initialize``).
 """
 
 import numpy as np
@@ -19,20 +19,17 @@ from jax import lax
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-from qoc_tpu.config import (MATMUL_PRECISION, np_complex_dtype,
-                            np_real_dtype, real_dtype)
+from qoc_tpu.config import np_complex_dtype, np_real_dtype
 from qoc_tpu.core.common import initialize_controls, slap_controls_jax
 from qoc_tpu.core.graperunner import run_grape
 from qoc_tpu.core.schroedinger import build_schroedinger_loss
 from qoc_tpu.io.resume import apply_resume
 from qoc_tpu.models import (
-    EnsembleLinearHamiltonian,
     GrapeSchroedingerDiscreteState,
     GrapeSchroedingerResult,
     InterpolationPolicy,
     MagnusPolicy,
 )
-from qoc_tpu.ops.interpolate import interpolate_linear_set
 from qoc_tpu.optim import Adam
 from qoc_tpu.parallel.sharding import ENSEMBLE_AXIS, make_mesh
 
@@ -44,7 +41,7 @@ def _replicate_aux(mesh):
     The loss's aux feeds H5 rows and result fields through host pulls; with
     ``out_specs=P(axis)`` the global aux is sharded across processes and a
     multi-host ``device_get`` would touch non-addressable shards. The
-    constraint makes XLA all-gather it inside the jit (riding ICI/DCN), so
+    constraint makes XLA all-gather it inside the jit, so
     every process holds a full replica — a no-op cost single-device, and
     small (final states only) elsewhere.
     """
@@ -67,14 +64,8 @@ def build_ensemble_loss(pstate, hamiltonian, hamiltonian_params, mesh,
     sharded over ``mesh``; the returned aux is the per-member final states
     stacked along the (sharded) ensemble axis.
 
-    When ``hamiltonian`` is an :class:`EnsembleLinearHamiltonian` (affine
-    member dependence) and the problem is in the fused regime (Magnus M2,
-    Pallas available), every member shard propagates through the fused
-    chain-propagation kernel (ops/chain_pallas.py) with the member
-    parameters as extra constant weight columns — the fastest path; the
-    returned loss has ``uses_fused_chain=True``. Step costs fuse too (the
-    kernel's per-step prefixes come back as an output, round 5). Otherwise
-    each member rolls out the generic magnus+expm loss under ``vmap``.
+    Each member rolls out the blocked Magnus+expm loss of
+    core/schroedinger.py under ``vmap`` inside its shard.
     """
     hamiltonian_params = np.asarray(hamiltonian_params)
     hamiltonian_params = hamiltonian_params.astype(
@@ -87,19 +78,10 @@ def build_ensemble_loss(pstate, hamiltonian, hamiltonian_params, mesh,
             "ensemble member count {} must be divisible by the mesh axis "
             "size {}".format(n_members, n_shards))
 
-    fused, why = _build_fused_ensemble_loss(
-        pstate, hamiltonian, hamiltonian_params, mesh, axis_name, n_members,
-        n_shards, check_vma, time_block_size)
-    if fused is not None:
-        if log_path:
-            print("qoc_tpu: ensemble propagation path = fused Pallas chain "
-                  "kernel (member-batched, {} members x {} shards)."
-                  "".format(n_members, n_shards))
-        return fused
     if log_path:
-        print("qoc_tpu: ensemble propagation path = generic batched "
-              "Magnus+expm under vmap ({}). The fused chain kernel is "
-              "typically ~10x faster when applicable.".format(why))
+        print("qoc_tpu: ensemble propagation path = batched Magnus+expm "
+              "under vmap ({} members x {} shards).".format(n_members,
+                                                            n_shards))
 
     def member_loss(controls, params_row):
         override = lambda c, t: hamiltonian(params_row, c, t)
@@ -107,7 +89,7 @@ def build_ensemble_loss(pstate, hamiltonian, hamiltonian_params, mesh,
             pstate, hamiltonian_override=override,
             pvary_axes=(axis_name,) if check_vma else None,
             time_block_size=time_block_size,
-            allow_plane_chain=False)  # vmapped below; see the builder
+            batch_size=n_members // n_shards)
         return loss(controls)
 
     def shard_fn(controls, params_shard):
@@ -126,171 +108,7 @@ def build_ensemble_loss(pstate, hamiltonian, hamiltonian_params, mesh,
         err, states = sharded(controls, hamiltonian_params)
         return err, replicate(states)
 
-    loss.uses_fused_chain = False
     return loss
-
-
-def _build_fused_ensemble_loss(pstate, hamiltonian, params, mesh, axis_name,
-                               n_members, n_shards, check_vma=True,
-                               time_block_size=None):
-    """(fused-kernel ensemble loss, why) — the loss is None when the problem
-    is outside the fused regime, with ``why`` naming the disqualifier.
-
-    Member chains run in ONE Pallas dispatch per time block per shard: the
-    chain kernel's major grid axis walks the shard's members
-    (ops/chain_pallas.py), the shared generator basis is
-    [h0, param_ops..., P_i, Q_i] and member m's weight rows are
-    [1, δ_m, Re c, Im c] — only the δ columns differ across members, so the
-    Taylor-degree dispatch and VMEM basis stack are shared.
-    """
-    from qoc_tpu.ops.expm import _EXPM_FORWARD, _pallas_ok
-
-    if not isinstance(hamiltonian, EnsembleLinearHamiltonian):
-        return None, "hamiltonian is not an EnsembleLinearHamiltonian"
-    if pstate.magnus_policy != MagnusPolicy.M2:
-        return None, "magnus policy {} (fused chain needs M2)".format(
-            pstate.magnus_policy)
-    if pstate.control_eval_times is None:
-        return None, "no controls"
-    if not (_EXPM_FORWARD["impl"] == "pallas"
-            or (_EXPM_FORWARD["impl"] == "auto" and _pallas_ok())):
-        return None, "Pallas expm unavailable on this backend"
-    if (params.ndim != 2 or np.iscomplexobj(params)
-            or params.shape[1] != hamiltonian.param_count):
-        return None, "hamiltonian_params is not a real (n_members, {}) " \
-            "array".format(hamiltonian.param_count)
-
-    rdt = real_dtype()
-    initial_states = np.asarray(pstate.initial_states).astype(
-        np_complex_dtype())
-    d = initial_states.shape[-2]
-    dt = float(pstate.dt)
-    n_steps = pstate.system_eval_count - 1
-    m_per_shard = n_members // n_shards
-
-    from qoc_tpu.ops.chain_pallas import (chain_block_plan, chain_fused_ok,
-                                          make_chain_expm_propagate)
-    if not chain_fused_ok(d, n_steps, m_per_shard):
-        return None, ("problem size outside kernel limits (padded d > 256, "
-                      "too few steps, or member block memory over budget)")
-    block, remat = chain_block_plan(d, n_steps, m_per_shard)
-    if time_block_size is not None:
-        if not chain_fused_ok(d, time_block_size, m_per_shard):
-            return None, ("time_block_size {} below the fused kernel's "
-                          "segment floor".format(time_block_size))
-        block = int(time_block_size)
-
-    n_blocks = -(-n_steps // block)
-    pad = n_blocks * block - n_steps
-    cet = np.asarray(pstate.control_eval_times, dtype=rdt)
-    costs = pstate.costs
-    step_costs = pstate.step_costs
-    cost_eval_step = pstate.cost_eval_step
-    need_trajectory = bool(step_costs)
-    final_step = pstate.final_system_eval_step
-    p_count = hamiltonian.param_count
-    basis = hamiltonian.generator_basis(dt).astype(np_complex_dtype())
-    fused_chain = make_chain_expm_propagate(
-        basis, return_prefixes=need_trajectory)
-    params = params.astype(np.dtype(rdt).name)
-
-    def shard_fn(controls, params_shard):
-        delta = params_shard.astype(rdt)            # (M_s, P), varying
-
-        def weights(times, valid):
-            """(M_s, B, 1 + P + 2C) weight rows at the step midpoints."""
-            c_mid = jax.vmap(
-                lambda t: interpolate_linear_set(t + dt / 2, cet, controls)
-            )(times)
-            c_mid = jnp.atleast_2d(c_mid)
-            ones = jnp.ones(c_mid.shape[:-1] + (1,), dtype=rdt)
-            ri = jnp.stack((jnp.real(c_mid), jnp.imag(c_mid)), axis=-1)
-            ri = ri.reshape(c_mid.shape[:-1] + (2 * c_mid.shape[-1],))
-            ctl = jnp.concatenate((ones, ri.astype(rdt)), axis=-1)
-            # Controls are replicated; promote to the varying member axis
-            # before mixing with the per-shard δ columns.
-            if check_vma:
-                ctl = lax.pcast(ctl, (axis_name,), to="varying")
-            b = times.shape[0]
-            w = jnp.concatenate((
-                jnp.broadcast_to(ctl[None, :, :1], (m_per_shard, b, 1)),
-                jnp.broadcast_to(delta[:, None, :], (m_per_shard, b,
-                                                     p_count)),
-                jnp.broadcast_to(ctl[None, :, 1:],
-                                 (m_per_shard, b, ctl.shape[-1] - 1)),
-            ), axis=-1)
-            return (w * valid[None, :, None].astype(rdt)).astype(jnp.float32)
-
-        def step_cost_values(states_k, k):
-            step_error = jnp.asarray(0.0, dtype=rdt)
-            for cost in step_costs:
-                step_error = step_error + cost.cost(controls, states_k, k)
-            is_cost_step = (k % cost_eval_step) == 0
-            return jnp.where(is_cost_step, step_error, 0.0)
-
-        def block_body(carry, xs):
-            states, errs = carry
-            ks_block, valid = xs
-            times = (ks_block - 1).astype(rdt) * dt
-            if need_trajectory:
-                # Per-member kernel prefixes -> per-step states; the prefix
-                # cotangents seed the backward kernel per step
-                # (ops/chain_pallas.py return_prefixes, batched form).
-                prods, prefixes = fused_chain(weights(times, valid))
-                states_all = jnp.einsum("mtij,mkjl->mtkil", prefixes,
-                                        states, precision=MATMUL_PRECISION)
-
-                def member_block_cost(states_all_m):
-                    per_step = jax.vmap(step_cost_values)(states_all_m,
-                                                          ks_block)
-                    return jnp.sum(jnp.where(valid, per_step, 0.0))
-
-                errs = errs + jax.vmap(member_block_cost)(states_all)
-            else:
-                prods = fused_chain(weights(times, valid))   # (M_s, d, d)
-            states = jnp.einsum("mij,mkjl->mkil", prods, states,
-                                precision=MATMUL_PRECISION)
-            return (states, errs), None
-
-        body_fn = jax.checkpoint(block_body) if remat else block_body
-        ks = jnp.arange(1, pstate.system_eval_count)
-        if pad:
-            ks = jnp.concatenate((ks, jnp.full(
-                (pad,), pstate.system_eval_count, dtype=ks.dtype)))
-        valid = ks < pstate.system_eval_count
-        xs = (ks.reshape(n_blocks, block), valid.reshape(n_blocks, block))
-        states0 = jnp.broadcast_to(
-            jnp.asarray(initial_states)[None],
-            (m_per_shard,) + initial_states.shape)
-        errs0 = jnp.zeros((m_per_shard,), dtype=rdt)
-        if check_vma:
-            states0 = lax.pcast(states0, (axis_name,), to="varying")
-            errs0 = lax.pcast(errs0, (axis_name,), to="varying")
-        (states, step_errs), _ = lax.scan(body_fn, (states0, errs0), xs)
-
-        def member_cost(states_m):
-            err = jnp.asarray(0.0, dtype=rdt)
-            for cost in costs:
-                if not cost.requires_step_evaluation:
-                    err = err + cost.cost(controls, states_m, final_step)
-            return err
-
-        errs = jax.vmap(member_cost)(states) + step_errs
-        total = lax.psum(jnp.sum(errs), axis_name)
-        return total / n_members, states
-
-    sharded = shard_map(shard_fn, mesh=mesh,
-                        in_specs=(P(), P(axis_name)),
-                        out_specs=(P(), P(axis_name)), check_vma=check_vma)
-
-    replicate = _replicate_aux(mesh)
-
-    def loss(controls):
-        err, states = sharded(controls, jnp.asarray(params))
-        return err, replicate(states)
-
-    loss.uses_fused_chain = True
-    return loss, None
 
 
 def grape_schroedinger_ensemble(control_count, control_eval_count, costs,
@@ -308,13 +126,13 @@ def grape_schroedinger_ensemble(control_count, control_eval_count, costs,
                                 save_file_path=None,
                                 save_intermediate_states=False,
                                 save_iteration_step=0, time_block_size=None,
-                                fused_chunk=None, fused_mode=None,
+                                fused_chunk=None,
                                 check_vma=True):
     """Robust GRAPE over an ensemble of Hamiltonians (qoc_tpu extension).
 
     Same contract as :func:`qoc_tpu.grape_schroedinger_discrete` (including
     ``resume_from``/``save_intermediate_states``/``time_block_size``/
-    ``fused_chunk``/``fused_mode``) except:
+    ``fused_chunk``) except:
     - ``hamiltonian(params_row, controls_t, time) -> (d, d)`` takes a member
       parameter row first,
     - ``hamiltonian_params`` :: array (n_members, ...) — one row per member;
@@ -351,8 +169,6 @@ def grape_schroedinger_ensemble(control_count, control_eval_count, costs,
     pstate.ensemble_params = hamiltonian_params
     if fused_chunk is not None:
         pstate.fused_chunk = fused_chunk
-    if fused_mode is not None:
-        pstate.fused_mode = fused_mode
     if resume_from is not None:
         apply_resume(pstate, resume_from)
     loss_controls = build_ensemble_loss(pstate, hamiltonian,
@@ -383,8 +199,7 @@ def grape_schroedinger_ensemble(control_count, control_eval_count, costs,
                 closs = build_schroedinger_loss(
                     pstate, collect_intermediates=True, remat=False,
                     hamiltonian_override=override,
-                    time_block_size=time_block_size,
-                    allow_plane_chain=False)  # vmapped below
+                    time_block_size=time_block_size)
                 return closs(controls)[2]            # (S, K, d, 1)
 
             inters = jax.vmap(member_intermediates)(jnp.asarray(members))

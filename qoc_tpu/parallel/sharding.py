@@ -4,7 +4,7 @@ The reference is single-process/single-thread (SURVEY.md §2.4); qoc_tpu's
 distribution model is JAX-native: a 1-D ``Mesh`` over an ``"ensemble"`` axis,
 ``shard_map`` partitioning of the ensemble/state-batch work, and XLA
 collectives (``psum``) reducing per-shard cost and gradient contributions —
-lowered onto ICI within a slice and DCN across hosts.
+lowered to NCCL between the GPUs of a host and across hosts.
 """
 
 import numpy as np
@@ -38,10 +38,11 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
                            process_id=None):
     """Multi-host bring-up: thin wrapper over ``jax.distributed.initialize``.
 
-    On a TPU pod slice all arguments are auto-detected from the environment;
-    pass them explicitly for CPU/GPU multi-process runs. After this,
-    ``jax.devices()`` spans the whole slice and ``make_mesh`` builds a global
-    mesh whose collectives ride ICI intra-slice and DCN across slices.
+    Pass all three arguments (the coordinator as ``host:port``): nothing in
+    the environment tells JAX of the cluster. After this, ``jax.devices()``
+    spans every process's GPUs and ``make_mesh`` builds a global mesh whose
+    collectives run over NVLink within a host and the network across
+    hosts.
     """
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,

@@ -18,8 +18,7 @@ try:
 except ImportError:  # pragma: no cover
     _HAVE_MPL = False
 
-import h5py
-from filelock import FileLock, Timeout
+from qoc_tpu.io.h5 import h5_modules
 
 __all__ = ["plot_controls", "plot_state_population",
            "plot_density_population"]
@@ -28,6 +27,7 @@ _LOCK_TIMEOUT_S = 10
 
 
 def _read_locked(file_path, keys):
+    h5py, FileLock, Timeout = h5_modules()
     lock_path = file_path + ".lock"
     try:
         with FileLock(lock_path, timeout=_LOCK_TIMEOUT_S):

@@ -48,7 +48,7 @@ _RUN_SPECS = [
     ("4_cavity_transfer", {}, False),
     ("5_multistart_robust", {"n_starts": 8}, False),
     ("6_lindblad_ensemble_robust", {"n_starts": 8}, False),
-    # The d=20 showcase runs on TPU; the smoke tier shrinks the cavity so
+    # The d=20 showcase runs on the GPU; the smoke tier shrinks the cavity so
     # the CPU superoperators stay small (sop 36 instead of 400).
     ("7_cavity_lindblad", {"cavity_levels": 6}, False),
     # Step-cost (ForbidStates) run — the fused per-step-prefix regime.

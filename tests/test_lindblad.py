@@ -168,3 +168,28 @@ def test_grape_lindblad_magnus_expm_method():
         optimizer=Adam(learning_rate=0.05))
     # Frobenius density infidelity floor for pure states at d=2 is 0.5.
     assert result.best_error < 0.6
+
+
+def test_memory_plan_covers_the_vmapped_batch(capsys):
+    """Superoperator blocks shrink with the number of copies vmapped side by
+    side (ensemble members, multistart candidates)."""
+    from qoc_tpu.core.lindblad import build_lindblad_loss
+    from qoc_tpu.models import (GrapeLindbladDiscreteState,
+                                InterpolationPolicy, LindbladMethod,
+                                MagnusPolicy)
+    from qoc_tpu.optim import Adam
+    from qoc_tpu.standard import TargetDensityInfidelity
+    d, n_steps = 20, 100
+    rho = np.zeros((1, d, d)); rho[0, 0, 0] = 1
+    pstate = GrapeLindbladDiscreteState(
+        True, 1, n_steps, 1, [TargetDensityInfidelity(rho)], 10.0,
+        lambda c, t: np.zeros((d, d)), None, np.zeros((n_steps, 1), complex),
+        rho, InterpolationPolicy.LINEAR, 1, None, 0, [1.0], 0, Adam(), None,
+        False, 0, n_steps + 1)
+    pstate.method_ = LindbladMethod.MAGNUS_EXPM
+    pstate.magnus_policy_ = MagnusPolicy.M2
+    build_lindblad_loss(pstate, log_path=True)
+    build_lindblad_loss(pstate, log_path=True, batch_size=64)
+    single, batched = capsys.readouterr().out.strip().splitlines()
+    assert "block=52, remat=False" in single
+    assert "block=1, remat=True" in batched

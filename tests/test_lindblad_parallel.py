@@ -1,5 +1,5 @@
 """Lindblad parallel-layer tests: ensemble-robust GRAPE over the 8-way
-virtual mesh, fused superoperator chain kernel parity, density-batch mesh
+virtual mesh, winners against the float64 oracle, density-batch mesh
 sharding, Lindblad multistart, and ensemble H5 saving — the open-system
 mirror of tests/test_parallel.py / test_multistart.py (SURVEY.md §2.4
 applied to the reference's second flagship entry point,
@@ -32,15 +32,6 @@ from qoc_tpu.standard import (
 )
 
 
-@pytest.fixture()
-def interpreted_pallas(monkeypatch):
-    from jax.experimental import pallas as pl
-    orig = pl.pallas_call
-    monkeypatch.setattr(
-        pl, "pallas_call",
-        lambda *a, **kw: orig(*a, **{**{"interpret": True}, **kw}))
-
-
 def _problem():
     h0 = np.asarray(SIGMA_Z) / 2
     a = get_annihilation_operator(2)
@@ -56,8 +47,7 @@ def _problem():
 def test_superoperator_basis_member_layout():
     """EnsembleLinearHamiltonian.superoperator_basis with weights
     [1, delta, Re c, Im c] reproduces the direct Lindblad superoperator of
-    the member Hamiltonian (the contract the fused ensemble path relies
-    on)."""
+    the member Hamiltonian."""
     from qoc_tpu.ops.lindblad import lindblad_superoperator
     ens_ham, _, _, _, _ = _problem()
     h0 = ens_ham.h0
@@ -115,94 +105,57 @@ def test_lindblad_ensemble_sharded_matches_single_magnus():
                        atol=1e-10)
 
 
-def test_lindblad_ensemble_fused_matches_generic(interpreted_pallas):
-    from qoc_tpu.ops.expm import set_expm_forward
+def _winner_oracle(result, members=None, forb=None, n_steps=20):
+    """Best error against the float64 oracle at the recorded (clipped,
+    evaluated) best controls: the member-mean final density infidelity plus
+    the per-step forbidden-density penalty."""
+    from oracles import (density_fidelity, flat_controls, lindblad_traj,
+                         linear_h)
+    from qoc_tpu.models import MagnusPolicy
+    _, _, initial, _, _ = _problem()
+    target = np.array([[[0.0, 0.0], [0.0, 1.0]]], dtype=complex)
+    h0 = np.asarray(SIGMA_Z) / 2
+    a = get_annihilation_operator(2)
+    flat = flat_controls(result.best_controls)
+    deltas = [0.0] if members is None else members[:, 0]
+    total = 0.0
+    for delta in deltas:
+        traj = lindblad_traj(linear_h((1 + delta) * h0, a[None]), [1e-3],
+                             a[None], flat, result.best_controls.shape,
+                             n_steps, MagnusPolicy.M2, initial,
+                             evolution_time=5.0)
+        total += 1 - density_fidelity(target, traj[-1])
+        if forb is not None:
+            total += sum(abs(np.trace(forb[0, 0].conj().T @ rho[0]) / 2) ** 2
+                         for rho in traj) / n_steps
+    assert abs(result.best_error - total / len(deltas)) < 1e-9
+
+
+def test_lindblad_ensemble_winner_matches_scipy():
     ens_ham, members, initial, costs, lindblad_data = _problem()
-    kwargs = dict(complex_controls=True, iteration_count=5,
-                  lindblad_data=lindblad_data, log_iteration_step=0,
-                  method=LindbladMethod.MAGNUS_EXPM, check_vma=False,
-                  optimizer=Adam(learning_rate=0.05), mesh=make_mesh(4))
-    generic = grape_lindblad_ensemble(
-        1, 7, costs, 5.0, ens_ham, members, initial, 21, **kwargs)
-    try:
-        set_expm_forward("pallas")
-        fused = grape_lindblad_ensemble(
-            1, 7, costs, 5.0, ens_ham, members, initial, 21, **kwargs)
-    finally:
-        set_expm_forward("auto")
-    # f32 kernel vs f64 XLA path: loose tolerance, same optimization run.
-    assert abs(fused.best_error - generic.best_error) < 1e-5
-    assert np.abs(fused.best_controls - generic.best_controls).max() < 1e-4
+    result = grape_lindblad_ensemble(
+        1, 7, costs, 5.0, ens_ham, members, initial, 21,
+        complex_controls=True, iteration_count=5,
+        lindblad_data=lindblad_data, log_iteration_step=0,
+        method=LindbladMethod.MAGNUS_EXPM,
+        optimizer=Adam(learning_rate=0.05), mesh=make_mesh(4))
+    _winner_oracle(result, members=members)
 
 
-def test_lindblad_ensemble_fused_step_costs_match_generic(
-        interpreted_pallas):
-    """Step costs (ForbidDensities) no longer disqualify the fused
-    member-batched superoperator chain (round 5): fused == generic."""
-    from qoc_tpu.ops.expm import set_expm_forward
+def test_lindblad_ensemble_step_costs_winner_matches_scipy():
+    """Step costs (ForbidDensities) ride the member-sharded loss."""
     from qoc_tpu.standard import ForbidDensities
     ens_ham, members, initial, costs, lindblad_data = _problem()
     forb = np.zeros((1, 1, 2, 2), dtype=complex)
     forb[0, 0, 0, 1] = forb[0, 0, 1, 0] = 0.5
     costs = costs + [ForbidDensities(forb, 21)]
-    kwargs = dict(complex_controls=True, iteration_count=4,
-                  lindblad_data=lindblad_data, log_iteration_step=0,
-                  method=LindbladMethod.MAGNUS_EXPM, check_vma=False,
-                  optimizer=Adam(learning_rate=0.05), mesh=make_mesh(4))
-    generic = grape_lindblad_ensemble(
-        1, 7, costs, 5.0, ens_ham, members, initial, 21, **kwargs)
-    try:
-        set_expm_forward("pallas")
-        # Prove the fused path is actually taken with step costs present.
-        from qoc_tpu.core.common import initialize_controls
-        from qoc_tpu.models import (GrapeLindbladDiscreteState,
-                                    InterpolationPolicy, MagnusPolicy)
-        ic, mn = initialize_controls(True, 1, 7, 5.0, None, None)
-        pstate = GrapeLindbladDiscreteState(
-            True, 1, 7, 1, costs, 5.0, None, None, ic, initial,
-            InterpolationPolicy.LINEAR, 1, lindblad_data, 0, mn, 0,
-            Adam(), None, False, 0, 21)
-        pstate.method_ = LindbladMethod.MAGNUS_EXPM
-        pstate.magnus_policy_ = MagnusPolicy.M2
-        probe = build_lindblad_ensemble_loss(pstate, ens_ham, members,
-                                             make_mesh(4), check_vma=False)
-        assert probe.uses_fused_chain
-        fused = grape_lindblad_ensemble(
-            1, 7, costs, 5.0, ens_ham, members, initial, 21, **kwargs)
-    finally:
-        set_expm_forward("auto")
-    assert abs(fused.best_error - generic.best_error) < 1e-5
-    assert np.abs(fused.best_controls - generic.best_controls).max() < 1e-4
-
-
-def test_lindblad_ensemble_fused_loss_flag(interpreted_pallas):
-    """The fused builder actually takes the superoperator chain path for an
-    EnsembleLinearHamiltonian + ConstantLindblad under MAGNUS_EXPM."""
-    from qoc_tpu.core.common import initialize_controls
-    from qoc_tpu.models import (GrapeLindbladDiscreteState,
-                                InterpolationPolicy, MagnusPolicy)
-    from qoc_tpu.ops.expm import set_expm_forward
-    ens_ham, members, initial, costs, lindblad_data = _problem()
-    initial_controls, max_norms = initialize_controls(True, 1, 7, 5.0, None,
-                                                      None)
-    pstate = GrapeLindbladDiscreteState(
-        True, 1, 7, 1, costs, 5.0, None, None, initial_controls, initial,
-        InterpolationPolicy.LINEAR, 1, lindblad_data, 0, max_norms, 0,
-        Adam(), None, False, 0, 21)
-    pstate.method_ = LindbladMethod.MAGNUS_EXPM
-    pstate.magnus_policy_ = MagnusPolicy.M2
-    try:
-        set_expm_forward("pallas")
-        loss = build_lindblad_ensemble_loss(pstate, ens_ham, members,
-                                            make_mesh(4), check_vma=False)
-    finally:
-        set_expm_forward("auto")
-    assert loss.uses_fused_chain
-    # RKDP5 never fuses.
-    pstate.method_ = LindbladMethod.RKDP5
-    loss2 = build_lindblad_ensemble_loss(pstate, ens_ham, members,
-                                         make_mesh(4), check_vma=False)
-    assert not loss2.uses_fused_chain
+    result = grape_lindblad_ensemble(
+        1, 7, costs, 5.0, ens_ham, members, initial, 21,
+        complex_controls=True, iteration_count=4,
+        lindblad_data=lindblad_data, log_iteration_step=0,
+        method=LindbladMethod.MAGNUS_EXPM,
+        optimizer=Adam(learning_rate=0.05), mesh=make_mesh(4))
+    _winner_oracle(result, members=members, forb=forb)
 
 
 def test_lindblad_ensemble_h5_saving(tmp_path):
@@ -282,26 +235,19 @@ def test_lindblad_multistart_sharded_matches_single():
     assert sharded.best_final_densities.shape == (1, 2, 2)
 
 
-def test_lindblad_multistart_fused_matches_generic(interpreted_pallas):
-    from qoc_tpu.ops.expm import set_expm_forward
+def test_lindblad_multistart_winner_matches_scipy():
     _, _, initial, costs, lindblad_data = _problem()
     h0 = np.asarray(SIGMA_Z) / 2
     a = get_annihilation_operator(2)
-    hamiltonian = LinearHamiltonian(h0, np.stack((a,)))
-    kwargs = dict(n_starts=4, complex_controls=True, iteration_count=5,
-                  hamiltonian=hamiltonian, lindblad_data=lindblad_data,
-                  log_iteration_step=0, optimizer=Adam(learning_rate=0.05),
-                  method=LindbladMethod.MAGNUS_EXPM, fused_chunk=3,
-                  check_vma=False, mesh=make_mesh(4, axis_name="candidate"))
-    generic = grape_lindblad_multistart(
-        1, 7, costs, 5.0, initial, 21, **kwargs)
-    try:
-        set_expm_forward("pallas")
-        fused = grape_lindblad_multistart(
-            1, 7, costs, 5.0, initial, 21, **kwargs)
-    finally:
-        set_expm_forward("auto")
-    assert np.allclose(fused.errors, generic.errors, atol=1e-4)
+    result = grape_lindblad_multistart(
+        1, 7, costs, 5.0, initial, 21, n_starts=4, complex_controls=True,
+        iteration_count=5, hamiltonian=LinearHamiltonian(h0, np.stack((a,))),
+        lindblad_data=lindblad_data, log_iteration_step=0,
+        optimizer=Adam(learning_rate=0.05),
+        method=LindbladMethod.MAGNUS_EXPM, fused_chunk=3,
+        mesh=make_mesh(4, axis_name="candidate"))
+    assert result.best_error == result.errors.min()
+    _winner_oracle(result)
 
 
 def test_lindblad_multistart_ensemble_2d_mesh():
@@ -455,56 +401,6 @@ def test_lindblad_ensemble_resume_reproduces_uninterrupted(tmp_path):
         assert np.allclose(np.asarray(f_full["controls"]),
                            np.asarray(f_res["controls"]), atol=1e-12)
         assert np.asarray(f_res["final_densities"]).shape == (10, 4, 1, 2, 2)
-
-
-def test_single_and_ensemble_lindblad_share_block_plan(monkeypatch):
-    """The fused single-run Lindblad path (core/lindblad.py) and the fused
-    ensemble path (parallel/lindblad.py) size their time blocks and decide
-    remat through the SAME planner — chain_block_plan's padded-plane
-    accounting — so one workload gets one (block, remat) decision at every
-    entry point (VERDICT r3 Weak #4)."""
-    from qoc_tpu.core.common import initialize_controls
-    from qoc_tpu.core.lindblad import build_lindblad_loss
-    from qoc_tpu.models import (GrapeLindbladDiscreteState,
-                                InterpolationPolicy, MagnusPolicy)
-    from qoc_tpu.ops.expm import set_expm_forward
-    import qoc_tpu.ops.chain_pallas as cp
-
-    calls = []
-    orig_plan = cp.chain_block_plan
-
-    def recording_plan(d, n_steps, n_chains=1):
-        out = orig_plan(d, n_steps, n_chains)
-        calls.append(((d, n_steps, n_chains), out))
-        return out
-
-    monkeypatch.setattr(cp, "chain_block_plan", recording_plan)
-
-    ens_ham, members, initial, costs, lindblad_data = _problem()
-    plain_ham = LinearHamiltonian(ens_ham.h0, ens_ham.operators)
-    initial_controls, max_norms = initialize_controls(True, 1, 7, 5.0, None,
-                                                      None)
-    pstate = GrapeLindbladDiscreteState(
-        True, 1, 7, 1, costs, 5.0, plain_ham, None, initial_controls,
-        initial, InterpolationPolicy.LINEAR, 1, lindblad_data, 0, max_norms,
-        0, Adam(), None, False, 0, 21)
-    pstate.method_ = LindbladMethod.MAGNUS_EXPM
-    pstate.magnus_policy_ = MagnusPolicy.M2
-    try:
-        set_expm_forward("pallas")
-        build_lindblad_loss(pstate)                     # single-run entry
-        pstate.hamiltonian = None
-        # 4 members over a 4-device mesh: m_per_shard == 1, the same
-        # workload the single-run path plans for.
-        loss = build_lindblad_ensemble_loss(pstate, ens_ham, members,
-                                            make_mesh(4), check_vma=False)
-    finally:
-        set_expm_forward("auto")
-    assert loss.uses_fused_chain
-    assert len(calls) == 2, calls
-    (args_single, plan_single), (args_ens, plan_ens) = calls
-    assert args_single == args_ens == (4, 20, 1)
-    assert plan_single == plan_ens
 
 
 @pytest.mark.xfail(
